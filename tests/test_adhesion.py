@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sph_tpu.core import quat
-from sph_tpu.core.types import Genome, GenomeMode, SimParams, SimState
-from sph_tpu.physics.adhesion import apply_adhesion, bond_deltas
+from sphsim.core import quat
+from sphsim.core.types import Genome, GenomeMode, SimParams, SimState
+from sphsim.physics.adhesion import apply_adhesion, bond_deltas
 
 
 def make_genome(rest=3.0, stiff=100.0, damp=5.0, orient=0.5):
@@ -176,8 +176,8 @@ def test_planned_accumulate_matches_segment_sum():
     gating, so bond_deltas(plan=stale) must still be exact)."""
     import jax
 
-    from sph_tpu.core.types import BondTable
-    from sph_tpu.physics.adhesion import (
+    from sphsim.core.types import BondTable
+    from sphsim.physics.adhesion import (
         accumulate_bond_deltas,
         accumulate_bond_deltas_planned,
         build_bond_plan,
@@ -228,15 +228,13 @@ def test_planned_accumulate_matches_segment_sum():
 
 
 def test_use_bond_plan_threshold_boundary():
-    """The auto crossover sits exactly at the probe-pinned capacity
-    (tools/probe_bondplan.py round 5: plain wins through cap 139,264,
-    plan from 180,224 — threshold 163,840 between the measured points):
+    """The auto crossover sits exactly at the threshold capacity 163,840:
     one row below auto stays plain, at/above it goes planned, and the
     explicit modes override in both directions."""
     import dataclasses
 
-    from sph_tpu.engine.colony import bonded_colony
-    from sph_tpu.engine.step import use_bond_plan
+    from sphsim.engine.colony import bonded_colony
+    from sphsim.engine.step import use_bond_plan
 
     state, params, _ = bonded_colony(
         128, neighbor_mode="dense", dense_k=2)
@@ -267,12 +265,13 @@ def test_planned_run_steps_matches_plain_through_division():
 
     import jax
 
-    from sph_tpu import Simulation
-    from sph_tpu.engine.colony import bonded_colony
-    from sph_tpu.engine.step import run_steps, use_bond_plan
+    from sphsim import Simulation
+    from sphsim.engine.colony import bonded_colony
+    from sphsim.engine.step import run_steps, use_bond_plan
 
     state, params, genome = bonded_colony(
-        256, neighbor_mode="dense", dense_k=2, max_splits_per_step=32)
+        256, neighbor_mode="dense", dense_k=2, max_splits_per_step=32,
+        use_pallas=False)
     sim = Simulation(genome, params, auto_grow=False, donate=False)
     sim.state = state
     sim.resize(320)
@@ -308,8 +307,8 @@ def test_hybrid_accumulate_stale_plan_with_rewrites():
     fallback must engage when the drift exceeds the side capacity."""
     import jax
 
-    import sph_tpu.physics.adhesion as adh
-    from sph_tpu.core.types import BondTable
+    import sphsim.physics.adhesion as adh
+    from sphsim.core.types import BondTable
 
     rng = np.random.default_rng(11)
     N, B = 300, 1024

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sph_tpu.biology.bonds import (
+from sphsim.biology.bonds import (
     ZONE_A,
     ZONE_B,
     ZONE_C,
     classify_zone,
     filter_bonds,
 )
-from sph_tpu.core import quat
-from sph_tpu.core.types import Genome, GenomeMode, SimParams, SimState
+from sphsim.core import quat
+from sphsim.core.types import Genome, GenomeMode, SimParams, SimState
 
 
 @pytest.mark.parametrize(
@@ -60,8 +60,8 @@ def simple_genome(**kw):
 
 
 def run_sim(genome, params, n_steps, capacity=16):
-    from sph_tpu.core.init import init_particles
-    from sph_tpu.engine.step import make_step_fn
+    from sphsim.core.init import init_particles
+    from sphsim.engine.step import make_step_fn
 
     st = init_particles(
         params, None, n_modes=len(genome.modes),
@@ -113,8 +113,8 @@ def test_split_geometry():
                        spawn_overlap_offset=0.5, split_velocity_magnitude=0.5,
                        repulsion_strength=0.0, global_drag_multiplier=0.0,
                        max_bonds=64)
-    from sph_tpu.core.init import init_particles
-    from sph_tpu.engine.step import make_step_fn
+    from sphsim.core.init import init_particles
+    from sphsim.engine.step import make_step_fn
 
     st = init_particles(params, None, n_modes=1, initial_mode=0, capacity=8)
     gd = genome.to_device()
@@ -141,7 +141,7 @@ def test_timer_resets_even_when_deferred():
     # With SOME headroom but more ready cells than allowed slots, every
     # ready cell resets its timer whether it was queued or not (cs:682:
     # 'Reset timer regardless of whether we can actually split now').
-    from sph_tpu.biology.division import queue_splits
+    from sphsim.biology.division import queue_splits
 
     genome = simple_genome()
     gd = genome.to_device()
@@ -161,7 +161,7 @@ def test_timers_freeze_at_capacity():
     # With NO headroom the reference returns before the timer-advance loop
     # (cs:648-649): timers FREEZE — no advance and no reset — so phases
     # resume where they stopped after a resize.
-    from sph_tpu.biology.division import queue_splits
+    from sphsim.biology.division import queue_splits
 
     genome = simple_genome()
     gd = genome.to_device()
@@ -265,7 +265,7 @@ def test_filter_bonds_fresh_exempt():
     ],
 )
 def test_bond_inheritance_truth_table(zone, keep_a, keep_b, inheritors):
-    from sph_tpu.biology.bonds import handle_cell_split
+    from sphsim.biology.bonds import handle_cell_split
 
     params = SimParams(capacity=8)
     st = SimState.zeros(8, params)
@@ -292,7 +292,7 @@ def test_bond_inheritance_truth_table(zone, keep_a, keep_b, inheritors):
 
 
 def test_bond_inheritance_resets_bond_freshness():
-    from sph_tpu.biology.bonds import handle_cell_split
+    from sphsim.biology.bonds import handle_cell_split
 
     params = SimParams(capacity=8)
     st = SimState.zeros(8, params)
@@ -314,9 +314,9 @@ def test_filter_bonds_settled_gate_is_exact():
     step of the reference scenario's first two division waves, the gated
     pass equals the ungated prune applied to the same state — i.e. the
     prune really is a fixed point once the table settles."""
-    from sph_tpu import Simulation
-    from sph_tpu.biology.bonds import _filter_bonds_active, filter_bonds
-    from sph_tpu.engine.config import reference_genome, reference_scene_params
+    from sphsim import Simulation
+    from sphsim.biology.bonds import _filter_bonds_active, filter_bonds
+    from sphsim.engine.config import reference_genome, reference_scene_params
 
     params = reference_scene_params(capacity=32).replace(
         dt=1 / 60, max_splits_per_step=8, max_bonds=128)
@@ -356,7 +356,7 @@ def test_drop_only_division_reopens_filter_gate():
     frame, CAM:72-75). Regression: the gate used to key on ACTIVE stamped
     bonds only, so a drop-only division left the gate shut and the
     stale-exempt group alive forever."""
-    from sph_tpu.biology.bonds import filter_bonds, handle_cell_split
+    from sphsim.biology.bonds import filter_bonds, handle_cell_split
 
     params = SimParams(capacity=8)
     st = SimState.zeros(8, params)
@@ -403,7 +403,7 @@ def test_adhesion_flags_come_from_child_a_mode():
     mode, not the parent's. Regression: with parent mode 0 (all flags
     False) transitioning child A to mode 1 (all flags True), the parent's
     bond must be inherited and the A↔B bond created."""
-    from sph_tpu.biology.division import process_pending_splits, queue_splits
+    from sphsim.biology.division import process_pending_splits, queue_splits
 
     genome = Genome((
         GenomeMode(is_initial=True, split_interval=1.0,

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sph_tpu.core.types import SimParams, SimState
-from sph_tpu.physics.contact import (
+from sphsim.core.types import SimParams, SimState
+from sphsim.physics.contact import (
     apply_contact,
     contact_forces_bruteforce,
     pair_contact,
@@ -134,14 +134,13 @@ def test_pair_contact_matches_bruteforce_rowsum():
 
 
 def _random_colony(n=400, seed=0, radius_spread=True):
-    """Crowded ball with real contacts. dense_k=4 keeps the dense sweep's
-    unrolled-variant graph small enough for fast CPU compiles (the sweep
-    size scales with K; k=8 is exercised on-chip by bench.py --cells)."""
+    """Crowded ball with real contacts (dense_k=4: the sweep's variant
+    count scales with K)."""
     import jax
 
     params = SimParams(
         capacity=n, spawn_radius=12.0, neighbor_mode="dense",
-        dense_k=4, max_bonds=8, max_splits_per_step=4,
+        dense_k=4, max_bonds=8, max_splits_per_step=4, use_pallas=False,
     )
     k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(seed), 4)
     u = jax.random.normal(k1, (n, 3))
@@ -168,7 +167,7 @@ def test_dense_contact_matches_bruteforce():
     own-only sweep machinery."""
     import jax
 
-    from sph_tpu.physics.contact_dense import contact_forces_dense
+    from sphsim.physics.contact_dense import contact_forces_dense
 
     st, params = _random_colony()
     fb, tb = contact_forces_bruteforce(st, params)
@@ -188,18 +187,20 @@ def test_dense_contact_matches_bruteforce():
 
 
 def test_dense_contact_pallas_matches_xla_twin():
-    """Pallas contact sweep == XLA twin (full-stencil own-only sweep), interpret
-    mode off-TPU; same contract as the fluid twins."""
+    """Triton contact sweep (Pallas interpreter) == XLA twin: both walk
+    contact_variants in the same order, so only FMA contraction may
+    differ."""
     import jax
 
-    from sph_tpu.physics.contact_dense import contact_forces_dense
+    from sphsim.physics.contact_dense import contact_forces_dense
 
     st, params = _random_colony(n=200, seed=1)
     fx, tx, ox = jax.jit(
         lambda s: contact_forces_dense(s, params.replace(use_pallas=False))
     )(st)
     fp, tp, op = jax.jit(
-        lambda s: contact_forces_dense(s, params.replace(use_pallas=True))
+        lambda s: contact_forces_dense(
+            s, params.replace(use_pallas="interpret"))
     )(st)
     assert int(ox) == int(op) == 0
     scale = float(jnp.abs(fx).max())
@@ -217,10 +218,11 @@ def test_dense_contact_overflow_counted():
     no force but is COUNTED, never silent."""
     import jax
 
-    from sph_tpu.physics.contact_dense import contact_forces_dense
+    from sphsim.physics.contact_dense import contact_forces_dense
 
     n = 12
-    params = SimParams(capacity=n, spawn_radius=12.0, dense_k=4)
+    params = SimParams(capacity=n, spawn_radius=12.0, dense_k=4,
+                       use_pallas=False)
     st = SimState.zeros(n, params)
     st = st.replace_fields(
         pos=jax.random.normal(jax.random.PRNGKey(0), (n, 3)) * 0.05,
@@ -234,11 +236,12 @@ def test_dense_contact_overflow_counted():
 def test_simulation_runs_with_dense_neighbor_mode():
     """The full cell-sim frame (division + adhesion + drag + rotation) runs
     on the dense contact path and matches the grid path's trajectory."""
-    from sph_tpu import Simulation
-    from sph_tpu.engine.config import reference_genome, reference_scene_params
+    from sphsim import Simulation
+    from sphsim.engine.config import reference_genome, reference_scene_params
 
     base = reference_scene_params(capacity=16).replace(
         dt=0.5, max_splits_per_step=8, max_bonds=64, dense_k=4,
+        use_pallas=False,
     )
     sims = {}
     for mode in ("grid", "dense"):
@@ -272,13 +275,13 @@ def test_dense_contact_matches_bruteforce_k_ladder(k):
     fluid-shared config) runs the random ball overflow-free."""
     import jax
 
-    from sph_tpu.physics.contact_dense import contact_forces_dense
+    from sphsim.physics.contact_dense import contact_forces_dense
 
     if k == 2:
         n = 128
         params = SimParams(
             capacity=n, spawn_radius=40.0, neighbor_mode="dense",
-            dense_k=2,
+            dense_k=2, use_pallas=False,
         )
         # 64 pair centers on a coarse lattice (spacing 9 ≫ 2 cells), each
         # pair 1.9 apart along a random direction (< contact reach 2.0).
@@ -332,12 +335,12 @@ def test_out_of_domain_particles_bin_interior_all_engines_agree():
     """Particles OUTSIDE the spawn sphere (division children are placed at
     parent ± offset BEFORE update_motion's boundary clamp runs, cs:753-754)
     must bin into interior edge cells, never the sentinel margin ring.
-    Regression: margin-binned particles made plane 0 partner ITSELF in the
-    Pallas kernel's clamped dz blocks, double-counting every same-plane
-    pair there — diverging from the XLA twin and both sharded rings."""
+    Regression: margin-binned particles made plane 0 partner ITSELF in a
+    kernel with clamped dz blocks, double-counting every same-plane pair
+    there — diverging from the XLA twin and both sharded rings."""
     import jax
 
-    from sph_tpu.physics.contact_dense import contact_forces_dense
+    from sphsim.physics.contact_dense import contact_forces_dense
 
     n = 4
     params = SimParams(
@@ -359,7 +362,7 @@ def test_out_of_domain_particles_bin_interior_all_engines_agree():
     )
     fb, tb = contact_forces_bruteforce(st, params)
     assert float(jnp.abs(fb).max()) > 0      # the pairs really touch
-    for use_pallas in (False, True):
+    for use_pallas in (False, "interpret"):
         fd, td, ovf = jax.jit(
             lambda s, p=params.replace(use_pallas=use_pallas):
             contact_forces_dense(s, p)
@@ -380,13 +383,13 @@ def test_out_of_domain_particles_bin_interior_all_engines_agree():
 def test_dense_contact_settled_screen_skips_to_zero():
     """A settled colony (every pair farther apart than the contact reach —
     the adhesion-rest-length steady state, engine/colony.py) must produce
-    exactly zero forces through the Pallas path, where the tile-level
-    contact screen (ops/pallas/contact.py) skips every pair sweep, AND
+    exactly zero forces through the Triton path, where the block-level
+    contact screen (ops/pallas/sweep.py) skips every pair sweep, AND
     through the XLA twin, which computes the full sweep — the screen's
     'skipped variants contribute exact ±0' argument, asserted end to end."""
     import jax
 
-    from sph_tpu.physics.contact_dense import contact_forces_dense
+    from sphsim.physics.contact_dense import contact_forces_dense
 
     n = 64
     params = SimParams(capacity=n, spawn_radius=14.0, dense_k=2)
@@ -402,7 +405,7 @@ def test_dense_contact_settled_screen_skips_to_zero():
         radius=jnp.full(n, 2.0),
         active_count=jnp.int32(n),
     )
-    for use_pallas in (False, True):
+    for use_pallas in (False, "interpret"):
         f, t, ovf = jax.jit(
             lambda s, p=params.replace(use_pallas=use_pallas):
             contact_forces_dense(s, p)

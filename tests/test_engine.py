@@ -3,8 +3,8 @@ drag, genome hot-reload, resize, config I/O."""
 
 import numpy as np
 
-from sph_tpu import Simulation
-from sph_tpu.engine.config import (
+from sphsim import Simulation
+from sphsim.engine.config import (
     genome_from_json,
     genome_to_json,
     params_from_json,
@@ -95,7 +95,7 @@ def test_scene_watcher_fires_on_genome_changed(tmp_path):
     import json
     import os
 
-    from sph_tpu.engine.config import save_scene, watch_scene
+    from sphsim.engine.config import save_scene, watch_scene
 
     params = small_params()
     genome = reference_genome()

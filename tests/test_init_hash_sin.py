@@ -11,9 +11,9 @@ survives a full engine run.
 import numpy as np
 import jax.numpy as jnp
 
-from sph_tpu.core.init import init_particles
-from sph_tpu.engine.config import reference_genome, reference_scene_params
-from sph_tpu.engine.simulation import Simulation
+from sphsim.core.init import init_particles
+from sphsim.engine.config import reference_genome, reference_scene_params
+from sphsim.engine.simulation import Simulation
 
 f32 = np.float32
 

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sph_tpu.core import quat
-from sph_tpu.core.types import SimParams, SimState
-from sph_tpu.physics.integrate import update_motion, update_rotation
+from sphsim.core import quat
+from sphsim.core.types import SimParams, SimState
+from sphsim.physics.integrate import update_motion, update_rotation
 
 
 def one_particle(params, **kw):

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sph_tpu.core.types import Genome, GenomeMode, SimParams, SimState
-from sph_tpu.native import (
+from sphsim.core.types import Genome, GenomeMode, SimParams, SimState
+from sphsim.native import (
     adhesion_deltas_native,
     contact_forces_native,
     ensure_built,
@@ -14,9 +14,9 @@ from sph_tpu.native import (
     update_motion_native,
     update_rotation_native,
 )
-from sph_tpu.physics.adhesion import bond_deltas
-from sph_tpu.physics.contact import contact_forces_bruteforce
-from sph_tpu.physics.integrate import update_motion, update_rotation
+from sphsim.physics.adhesion import bond_deltas
+from sphsim.physics.contact import contact_forces_bruteforce
+from sphsim.physics.integrate import update_motion, update_rotation
 
 
 def test_builds():
@@ -26,7 +26,7 @@ def test_builds():
 def random_state(n=48, seed=0, spread=6.0):
     k = jax.random.split(jax.random.PRNGKey(seed), 6)
     st = SimState.zeros(n, SimParams())
-    from sph_tpu.core import quat
+    from sphsim.core import quat
 
     q = jax.random.normal(k[4], (n, 4))
     return st.replace_fields(
@@ -97,7 +97,7 @@ def test_adhesion_deltas_match():
     b = st.bonds
     rng = np.random.default_rng(0)
     for i, (a_, b_) in enumerate([(0, 1), (2, 3), (1, 4), (5, 9)]):
-        from sph_tpu.core import quat
+        from sphsim.core import quat
 
         rel = quat.mul(quat.conjugate(st.rot[a_]), st.rot[b_])
         b = b.replace_fields(
@@ -121,13 +121,13 @@ def test_adhesion_deltas_match():
 
 
 def test_sph_density_accel_match():
-    from sph_tpu.sph.model import (
+    from sphsim.sph.model import (
         SPHState,
         compute_accel_bruteforce,
         compute_density_bruteforce,
         eos_pressure,
     )
-    from sph_tpu.sph.scenes import dam_break_2d
+    from sphsim.sph.scenes import dam_break_2d
 
     state, params = dam_break_2d(n_target=200)
     state = state.replace_fields(vel=jnp.sin(state.pos * 4.0))

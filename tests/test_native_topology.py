@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sph_tpu.biology.bonds import filter_bonds, update_bond_zones
-from sph_tpu.biology.division import process_pending_splits, queue_splits
-from sph_tpu.core import quat
-from sph_tpu.core.types import (
+from sphsim.biology.bonds import filter_bonds, update_bond_zones
+from sphsim.biology.division import process_pending_splits, queue_splits
+from sphsim.core import quat
+from sphsim.core.types import (
     BondTable, Genome, GenomeMode, SimParams, SimState,
 )
-from sph_tpu.native import (
+from sphsim.native import (
     filter_bonds_native,
     process_splits_native,
     queue_splits_native,
@@ -307,8 +307,8 @@ def test_reference_scenario_topology_sequence():
     cross-check every topology pass against the C++ oracle on the live
     states (the golden-trace scenario, now validated by an independent
     implementation rather than a self-regression)."""
-    from sph_tpu import Simulation
-    from sph_tpu.engine.config import reference_genome, reference_scene_params
+    from sphsim import Simulation
+    from sphsim.engine.config import reference_genome, reference_scene_params
 
     params = reference_scene_params(capacity=32).replace(
         dt=1 / 60, max_splits_per_step=8, max_bonds=128)

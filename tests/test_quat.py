@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sph_tpu.core import quat
+from sphsim.core import quat
 
 
 def test_mul_identity():

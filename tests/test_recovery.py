@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sph_tpu import Simulation
-from sph_tpu.engine.config import reference_genome, reference_scene_params
-from sph_tpu.engine.recovery import GuardedRun, SimulationFault, fault_flag
+from sphsim import Simulation
+from sphsim.engine.config import reference_genome, reference_scene_params
+from sphsim.engine.recovery import GuardedRun, SimulationFault, fault_flag
 
 
 def small_params(**kw):

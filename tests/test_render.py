@@ -4,8 +4,8 @@ parity surface: instanced render cs:344-347, CameraFly.cs)."""
 import jax.numpy as jnp
 import numpy as np
 
-from sph_tpu.render.camera import Camera
-from sph_tpu.render.splat import project_points, render_points, zbuffer
+from sphsim.render.camera import Camera
+from sphsim.render.splat import project_points, render_points, zbuffer
 
 
 def straight_camera():
@@ -99,9 +99,9 @@ def test_camera_orbit_keeps_distance():
 def test_cells_overlay_frame(tmp_path):
     """Full visual channel set: splat + id labels + zone-colored bond lines
     + drag marker (reference L4 parity surface)."""
-    from sph_tpu import Simulation
-    from sph_tpu.engine.config import reference_genome, reference_scene_params
-    from sph_tpu.render.overlay import render_cells_frame
+    from sphsim import Simulation
+    from sphsim.engine.config import reference_genome, reference_scene_params
+    from sphsim.render.overlay import render_cells_frame
 
     p = reference_scene_params(capacity=16).replace(
         dt=0.5, max_splits_per_step=8, max_bonds=64
@@ -131,7 +131,7 @@ def test_split_plane_ring_geometry():
     """Ring points lie on the radius-2 circle in the plane ⊥ the world
     split direction (cs:1065-1109: normal = frame · GetDirection(yaw,
     pitch), radius 2, 48 segments + closing point)."""
-    from sph_tpu.render.overlay import split_plane_ring_points
+    from sphsim.render.overlay import split_plane_ring_points
 
     center = np.array([1.0, 2.0, 3.0], np.float32)
     rot = np.array([0.0, 0.0, 0.0, 1.0], np.float32)   # identity
@@ -153,8 +153,8 @@ def test_sphere_impostor_radius_and_forward_dot():
     where the surface normal aligns with the particle's body +Z axis."""
     import jax
 
-    from sph_tpu.core import quat
-    from sph_tpu.render.impostor import render_spheres
+    from sphsim.core import quat
+    from sphsim.render.impostor import render_spheres
 
     cam = straight_camera()
     # Two cells: the right one has twice the radius. Identity rotation means
@@ -203,3 +203,43 @@ def test_render_points_radius_binning():
     left = lit[:, :64].sum()
     right = lit[:, 64:].sum()
     assert left > 3 * max(right, 1), (left, right)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """Minimal decoder for the writer's format: 8-bit RGB, filter 0."""
+    import struct
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF, kind
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = hdr[:4]
+    assert (depth, ctype) == (8, 2)
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert (raw[:, 0] == 0).all()
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def test_png_writer_roundtrip(tmp_path):
+    """save_image writes a valid PNG (stdlib writer) whose pixels decode
+    back to the quantized image."""
+    from sphsim.render.splat import png_bytes, save_image
+
+    rng = np.random.default_rng(0)
+    arr = rng.integers(0, 256, (7, 13, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(_decode_png(png_bytes(arr)), arr)
+
+    img = jnp.asarray(rng.uniform(-0.2, 1.2, (5, 9, 3)).astype(np.float32))
+    path = tmp_path / "f.png"
+    save_image(img, str(path))
+    want = (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(_decode_png(path.read_bytes()), want)

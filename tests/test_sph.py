@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sph_tpu.sph import kernels as K
-from sph_tpu.sph.model import (
+from sphsim.sph import kernels as K
+from sphsim.sph.model import (
     SPHParams,
     compute_accel,
     compute_accel_bruteforce,
@@ -17,7 +17,7 @@ from sph_tpu.sph.model import (
     obstacle_accel,
     sdf_value_grad,
 )
-from sph_tpu.sph.scenes import dam_break_2d, dam_break_3d
+from sphsim.sph.scenes import dam_break_2d, dam_break_3d
 
 
 @pytest.mark.parametrize("ndim", [2, 3])

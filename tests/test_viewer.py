@@ -3,9 +3,9 @@ reference does live (ParticleSystemController.cs:975-1034 + CameraFly)."""
 
 import numpy as np
 
-from sph_tpu import Simulation
-from sph_tpu.app.viewer import ViewerLoop
-from sph_tpu.engine.config import reference_genome, reference_scene_params
+from sphsim import Simulation
+from sphsim.app.viewer import ViewerLoop
+from sphsim.engine.config import reference_genome, reference_scene_params
 
 
 def make_sim():
@@ -77,8 +77,8 @@ def test_pixel_ray_roundtrip():
     is on (within a pixel of) the ray cast back through that pixel."""
     import jax.numpy as jnp
 
-    from sph_tpu.render.camera import Camera
-    from sph_tpu.render.splat import project_points
+    from sphsim.render.camera import Camera
+    from sphsim.render.splat import project_points
 
     cam = Camera()
     cam.focus_on((0, 0, 0), distance=40.0)

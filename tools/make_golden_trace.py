@@ -19,8 +19,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from sph_tpu import Simulation  # noqa: E402
-from sph_tpu.engine.config import (  # noqa: E402
+from sphsim import Simulation  # noqa: E402
+from sphsim.engine.config import (  # noqa: E402
     reference_genome,
     reference_scene_params,
 )
